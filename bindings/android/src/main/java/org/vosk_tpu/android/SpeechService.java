@@ -7,7 +7,7 @@
 // (structure: a single pump loop with a state latch instead of the
 // reference's timeout-handler chain; pause/mute are plain volatile flags).
 //
-// NOTE ON DEPLOYMENT: the vosk_tpu engine targets TPU-backed servers; the
+// NOTE ON DEPLOYMENT: the vosk_tpu engine targets accelerator-backed servers; the
 // expected mobile topology is this service streaming to a vosk_tpu
 // websocket server (server/ws.py) rather than linking the engine
 // on-device.  The on-device path compiles against the same C ABI

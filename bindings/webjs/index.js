@@ -8,8 +8,8 @@
  *   <- {"partial": ...} / {"text": ..., "result": [...]} JSON per chunk
  *
  * The reference webjs/ is a hello-world placeholder; decoding in-browser
- * is out of scope for a TPU framework — the browser streams audio to a
- * TPU-backed server instead.
+ * is out of scope for an accelerator framework — the browser streams audio
+ * to an accelerator-backed server instead.
  */
 class VoskTpuClient {
   /** @param {string} url e.g. "ws://localhost:2700" */

@@ -2,7 +2,7 @@
  *
  * Role: the irregular host-side finishing work the reference does in C++
  * (lattice assembly/pruning, forward-backward posteriors, n-best; cf.
- * reference src/recognizer.cc:430-667) operating on the TPU decoder's
+ * reference src/recognizer.cc:430-667) operating on the device decoder's
  * per-frame candidate records.  Consumed from Python via ctypes.
  */
 #ifndef VOSK_TPU_CORE_H

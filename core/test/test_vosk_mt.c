@@ -8,7 +8,7 @@
  * checks every thread produced the identical (non-empty) final result and
  * prints single-thread vs aggregate throughput, quantifying how much the
  * embedded-CPython shim's GIL serializes the ABI (the honest cost of the
- * Python-core design; the TPU itself is one shared device anyway). */
+ * Python-core design; the accelerator itself is one shared device anyway). */
 #include <pthread.h>
 #include <stdio.h>
 #include <stdlib.h>

@@ -10,11 +10,6 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import jax
-
-if jax.default_backend() not in ("tpu",):
-    jax.config.update("jax_platforms", "cpu")
-
 TOY_DIR = os.environ.get("VOSK_TPU_EXAMPLE_MODEL", "/tmp/vosk_tpu_toy_model_v1")
 
 

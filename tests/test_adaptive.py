@@ -13,7 +13,7 @@ import jax.numpy as jnp
 
 from vosk_tpu.ops.viterbi import BatchViterbi, DecodeParams
 from vosk_tpu.runtime.pipeline import FusedPipeline
-from vosk_tpu.utils.benchdata import make_bench_model, make_plausible_loglikes
+from vosk_tpu.utils.benchdata import make_bench_model, structured_ll_bias
 
 
 @pytest.fixture(scope="module")
@@ -56,18 +56,7 @@ def test_adaptive_matches_fixed_when_unsaturated(small_model):
     n_chunks = 4
     rng = np.random.default_rng(0)
     audio = (rng.standard_normal((n_chunks, B, S)) * 300).astype(np.float32)
-    st = pipe.init_state()
-    _, ll, _ = pipe.am._process_chunk_impl(
-        pipe.params, st["am"],
-        *pipe.ex._extract_chunk_impl(st["feat"], audio[0], None,
-                                     np.full((B,), S, np.int32))[1:],
-        None,
-    )
-    fd = ll.shape[1]
-    lb = make_plausible_loglikes(
-        small_model.graph, 256, B, n_chunks * fd, snr=8.0, seed=0
-    )
-    ll_bias = jnp.asarray(lb.reshape(n_chunks, fd, B, 256).swapaxes(1, 2))
+    ll_bias = structured_ll_bias(pipe, n_chunks, snr=8.0, seed=0)
 
     s1, _, best_fixed = pipe.run_scan(pipe.init_state(), jnp.asarray(audio),
                                       ll_bias=ll_bias)

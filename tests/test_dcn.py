@@ -1,4 +1,4 @@
-"""Multi-host (DCN) utterance sharding: 2 jax.distributed processes x 4 CPU
+"""Multi-host utterance sharding: 2 jax.distributed processes x 4 CPU
 devices decode channel shards on ONE global mesh; the utterance-sharded
 search mode additionally runs its pmin beam sync + all_gather merge over a
 `model` axis that crosses the host boundary.

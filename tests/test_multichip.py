@@ -33,7 +33,7 @@ def _run(pipe, audio_dev):
 
 def test_decode_data_parallel_exact(model):
     """The decoder sharded over channels must be BIT-EXACT vs single-device:
-    token passing is channel-local (sorts and one-hot gathers are
+    token passing is channel-local (sorts and gathers are
     per-channel), so partitioning the batch cannot change results."""
     from vosk_tpu.ops.viterbi import BatchViterbi, DecodeParams
 

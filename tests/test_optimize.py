@@ -69,7 +69,7 @@ def test_split_high_degree_preserves_decode(seed):
     assert c1 == pytest.approx(c0, rel=1e-5)
     assert ols1 == ols0
 
-    # and through the TPU decoder with the padded layout
+    # and through the device decoder with the padded layout
     graph = flatten_fst(f2)
     dec = BatchViterbi(graph, DecodeParams(beam=1e9, max_active=64))
     assert dec.layout == "padded"

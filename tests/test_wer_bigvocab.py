@@ -1,5 +1,5 @@
 """WER parity at scale: a generated 600-word language with homophones and
-a few-thousand-state graph (VERDICT r4: stop resting accuracy claims on
+a few-thousand-state graph (round-4 review: stop resting accuracy claims on
 the 5-word toy corpus; reference QA analogue training/RESULTS.txt:1-2).
 
 Asserts on the SAME axes as tests/test_wer_parity.py but at a vocabulary

@@ -1,12 +1,11 @@
-"""Multi-host (DCN) worker: one process of an N-process jax.distributed
-slice decoding utterance shards (BASELINE.md north-star config: data-
-parallel utterance shards across hosts, beam-pruning thresholds
-synchronized via collectives).
+"""Multi-host worker: one process of an N-process jax.distributed
+slice decoding utterance shards (data-parallel utterance shards across
+hosts, beam-pruning thresholds synchronized via collectives).
 
 The reference's scale-out analogue is process-level websocket sharding
 (python/vosk/transcriber/transcriber.py:51-72); here the hosts form ONE
-global device mesh — per-host channel shards ride the `data` axis (DCN
-between processes), and the utterance-sharded search mode additionally
+global device mesh — per-host channel shards ride the `data` axis (the
+network between processes), and the utterance-sharded search mode additionally
 splits each frame's expansion over a `model` axis that CROSSES the host
 boundary, so its pmin beam sync and all_gather merge are real cross-host
 collectives.
@@ -72,7 +71,7 @@ def main() -> None:
     best_np = np.asarray(multihost_utils.process_allgather(best, tiled=True))
 
     # ---- utterance-sharded search with the model axis CROSSING hosts:
-    # device grid [[0,4],[1,5],[2,6],[3,7]] -> pmin/all_gather ride DCN
+    # device grid [[0,4],[1,5],[2,6],[3,7]] -> pmin/all_gather cross hosts
     grid = np.asarray(devs).reshape(nproc, 4).T  # [4, nproc]
     mesh2 = Mesh(grid, ("data", "model"))
     B2 = 8

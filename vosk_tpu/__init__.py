@@ -1,9 +1,9 @@
-"""vosk_tpu — TPU-native speech recognition with the vosk-api surface.
+"""vosk_tpu — speech recognition in JAX with the vosk-api surface.
 
 Drop-in parity with the reference Python binding (python/vosk/__init__.py):
 `Model`, `SpkModel`, `KaldiRecognizer`, `BatchModel`, `BatchRecognizer`,
 `SetLogLevel`, `GpuInit` — same method names and JSON result formats, backed
-by jax/XLA on TPU instead of a Kaldi C library.
+by jax/XLA on an accelerator instead of a Kaldi C library.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Array-level decoding-graph transforms for the TPU frame step.
+"""Array-level decoding-graph transforms for the device frame step.
 
 Operates directly on the flattened CSR `DecodingGraph` (numpy), so it
 scales to multi-million-state graphs where the python-object `StdFst`
@@ -30,7 +30,7 @@ Two transforms, composed by `prepare_graph_v4`:
 The reference decodes HCLG graphs with epsilon (backoff) arcs in place
 (Kaldi LatticeIncrementalDecoder processes non-emitting arcs each frame,
 consumed via /root/reference/src/recognizer.cc:310); eliminating them at
-load is the TPU-shaped equivalent: one dense, eps-free [state, M] arc
+load is the fixed-shape equivalent: one dense, eps-free [state, M] arc
 table per frame step.
 """
 from __future__ import annotations

@@ -1,9 +1,9 @@
-"""Weighted FST structures and the flattened arc-table form used by the TPU
+"""Weighted FST structures and the flattened arc-table form used by the device
 decoder.
 
 The reference decodes over OpenFST `StdFst` graphs loaded at
 src/model.cc:278-286 and walked arc-by-arc by Kaldi's CPU/CUDA decoders.  The
-TPU-native form is a CSR arc table in HBM: per-state contiguous arc ranges,
+device form is a CSR arc table in device memory: per-state contiguous arc ranges,
 with *emitting* (ilabel>0) and *epsilon* (ilabel==0) arcs split into separate
 tables so the decode kernel can run the emitting expansion and the epsilon
 closure as separate fixed-shape phases (the same split the CUDA decoder makes,
@@ -113,7 +113,7 @@ class StdFst:
 
 @dataclasses.dataclass
 class DecodingGraph:
-    """Flattened CSR arc tables for the TPU token-passing kernel.
+    """Flattened CSR arc tables for the device token-passing program.
 
     Emitting arcs consume one acoustic frame; their ilabel is pre-mapped to a
     pdf index via `ilabel_to_pdf` at build time (the reference maps

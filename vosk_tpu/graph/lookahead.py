@@ -7,7 +7,7 @@ acceptor).  The reference composes them lazily with OpenFST's lookahead
 matchers (`LookaheadComposeFst(hcl, g, disambig)`,
 /root/reference/src/recognizer.cc:33,94,120; loading at model.cc:278-286).
 
-On TPU the decode graph must be a static arc table anyway, so the
+On the device the decode graph must be a static arc table anyway, so the
 composition happens eagerly at load time: standard tropical composition
 (graph/builder.py), then the disambiguation ilabels are replaced by epsilon
 — exactly what LookaheadComposeFst's RemoveSomeInputSymbols wrapper does

@@ -1,4 +1,4 @@
-"""Graph transformations that shape decoding graphs for the TPU kernel:
+"""Graph transformations that shape decoding graphs for the device decoder:
 
 - `remove_epsilons`: eliminate epsilon arcs whose olabel is 0 by composing
   them into predecessor emitting arcs (and the start state / final costs).

@@ -1,5 +1,5 @@
 """Exact host-side Viterbi over an StdFst — the correctness oracle for the
-TPU token-passing kernel (tests compare against this; the reference's
+device token-passing program (tests compare against this; the reference's
 behavioral contract is Kaldi's LatticeFasterDecoder best path).
 
 Pure numpy/dict implementation, no pruning (or wide beam), full traceback

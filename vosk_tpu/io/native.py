@@ -1,7 +1,7 @@
 """Native vosk_tpu model-directory format.
 
 Mirrors the *role* of the reference's model dir (layout probing at
-src/model.cc:106-128, V2 layout at model.cc:180-207) with a TPU-native
+src/model.cc:106-128, V2 layout at model.cc:180-207) with a native
 serialization: JSON config + npz arrays.
 
     model_dir/

@@ -1,4 +1,4 @@
-"""LF-MMI ("chain") acoustic-model training, TPU-native.
+"""LF-MMI ("chain") acoustic-model training, in JAX.
 
 The reference's acoustic models are trained with Kaldi's lattice-free MMI
 recipe (training/run.sh stages 4-5, local/chain/run_tdnn.sh:135-166); the
@@ -8,11 +8,12 @@ objective is
 
 where the numerator graph encodes the transcript and the denominator graph
 is a phone-LM HMM accepting all phone sequences.  This module implements
-the same objective with the TPU-shaped design:
+the same objective with a matmul-shaped design:
 
   * the DENOMINATOR forward recursion runs in probability space with
-    per-frame renormalization so the S x S transition step is a single MXU
-    matmul per frame (log-space logsumexp-matmuls cannot use the MXU);
+    per-frame renormalization so the S x S transition step is a single
+    matmul per frame (log-space logsumexp-matmuls cannot use the matrix
+    units);
     gradients flow through the scan by autodiff — no hand-written
     occupancy accumulation like Kaldi's chain-den-graph code
   * the NUMERATOR is the forced alignment (per-frame pdf targets), i.e. a
@@ -22,7 +23,7 @@ the same objective with the TPU-shaped design:
   * leaky-HMM is applied as a per-frame rank-1 leak through a virtual
     hub distributed by the initial probabilities (Kaldi's
     leaky_hmm_coefficient, default 0.1) — in the prob-space recursion it
-    composes with the transition matmul at no extra MXU cost
+    composes with the transition matmul at no extra matmul cost
   * cross-entropy regularization (Kaldi --xent-regularize 0.1) uses the
     same output head with a small weight.
 
@@ -97,7 +98,7 @@ def den_logprob(den: DenominatorGraph, ll: jnp.ndarray) -> jnp.ndarray:
     (the network output; chain models are trained without priors).
 
     Probability-space forward with per-frame renormalization: alpha is kept
-    as (unit-scaled probs, log-scale) so the transition step is one MXU
+    as (unit-scaled probs, log-scale) so the transition step is one
     matmul per frame."""
     T = jnp.asarray(den.trans)          # [S, S]
     init = jnp.asarray(den.init)
@@ -118,11 +119,11 @@ def den_logprob(den: DenominatorGraph, ll: jnp.ndarray) -> jnp.ndarray:
             # leaky-HMM (Kaldi chain-denominator-graph leaky_hmm_coefficient,
             # default 0.1): every state leaks mass through a virtual hub
             # distributed by the initial probabilities — a rank-1 update,
-            # so the transition step stays one MXU matmul
+            # so the transition step stays one matmul
             a = a + leaky * jnp.sum(a, axis=1, keepdims=True) * init[None, :]
         m = jnp.max(ll_t, axis=1, keepdims=True)
         e = jnp.exp(ll_t - m)
-        a2 = (a @ T) * e                     # MXU matmul + emission
+        a2 = (a @ T) * e                     # matmul + emission
         n = jnp.sum(a2, axis=1)
         a2 = a2 / jnp.maximum(n, 1e-30)[:, None]
         return (a2, logscale + m[:, 0] + jnp.log(jnp.maximum(n, 1e-30))), None

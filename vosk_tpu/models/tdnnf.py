@@ -4,9 +4,9 @@ family per training/local/chain/run_tdnn.sh:104-118: relu-batchnorm input
 layer, a stack of factorized TDNN-F layers with bottleneck + bypass, prefinal
 linear, chain output without log-softmax, frame-subsampling 3).
 
-TPU-first formulation: every layer is a batched matmul over *spliced* frames
+Formulation: every layer is a batched matmul over *spliced* frames
 (gather + reshape), so the whole forward is a chain of [B*T, in] @ [in, out]
-MXU matmuls — no conv primitives, no dynamic shapes.  bfloat16 matmuls with
+matmuls — no conv primitives, no dynamic shapes.  bfloat16 matmuls with
 f32 accumulation are used when `compute_dtype=bfloat16`.
 
 Streaming uses sliding-window recompute: to emit outputs for frames

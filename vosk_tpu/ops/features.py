@@ -1,10 +1,12 @@
-"""Streaming MFCC / log-mel filterbank feature extraction, TPU-first.
+"""Streaming MFCC / log-mel filterbank feature extraction.
 
 Replaces the reference's Kaldi feature pipeline (`OnlineNnet2FeaturePipeline`,
 used at reference src/recognizer.cc:28,308 and configured from ``mfcc.conf`` /
 ``fbank.conf`` at src/model.cc:218-228).
 
-TPU design: everything is expressed as dense matmuls so it lands on the MXU —
+Design: everything is expressed as dense float32 matmuls, at full precision
+(`HIGHEST`: no reduced-precision tensor-core passes, so the features keep
+Kaldi parity on any backend) —
   frames [N, padded_len] @ DFT_real/imag [padded_len, n_bins] -> power spectrum
   power [N, n_bins]     @ mel filterbank [n_bins, n_mels]    -> mel energies
   log-mel [N, n_mels]   @ DCT/lifter     [n_mels, n_ceps]    -> MFCC
@@ -179,6 +181,7 @@ def num_frames_ready(num_samples, frame_opts: FrameOptions):
 
 
 _LOG_FLOOR = 1.1754944e-38  # FLT_MIN, Kaldi's log floor
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class FeatureExtractor:
@@ -251,13 +254,17 @@ class FeatureExtractor:
             x = jnp.concatenate(
                 [x, jnp.zeros(x.shape[:-1] + (pad,), x.dtype)], axis=-1
             )
-        re = jnp.matmul(x, self.dft_re, preferred_element_type=jnp.float32)
-        im = jnp.matmul(x, self.dft_im, preferred_element_type=jnp.float32)
+        re = jnp.matmul(x, self.dft_re, precision=_HIGHEST,
+                        preferred_element_type=jnp.float32)
+        im = jnp.matmul(x, self.dft_im, precision=_HIGHEST,
+                        preferred_element_type=jnp.float32)
         power = re * re + im * im
-        mel_e = jnp.matmul(power, self.mel, preferred_element_type=jnp.float32)
+        mel_e = jnp.matmul(power, self.mel, precision=_HIGHEST,
+                           preferred_element_type=jnp.float32)
         if self.is_mfcc:
             logmel = jnp.log(jnp.maximum(mel_e, _LOG_FLOOR))
-            feats = jnp.matmul(logmel, self.dct, preferred_element_type=jnp.float32)
+            feats = jnp.matmul(logmel, self.dct, precision=_HIGHEST,
+                               preferred_element_type=jnp.float32)
             if opts.use_energy:
                 if opts.raw_energy:
                     e = jnp.log(jnp.maximum(raw_energy, _LOG_FLOOR))

@@ -1,4 +1,4 @@
-"""Online i-vector extraction as batched TPU GEMMs.
+"""Online i-vector extraction as batched GEMMs.
 
 Replaces Kaldi's `OnlineIvectorFeature` (used by the reference's feature
 pipeline when a model ships an `ivector/` dir, src/model.cc:247-263):
@@ -10,12 +10,12 @@ and solve the i-vector posterior mean
     (I + sum_g gamma_g M_g^T Sigma_g^{-1} M_g) x
         = prior_offset * e0 + sum_g M_g^T Sigma_g^{-1} x_g
 
-Everything is channel-batched: UBM log-likes and stats are [B, ...] matmuls
-on the MXU; the solve is a small batched linear system.  Silence weighting
-(reference recognizer.cc:226-237) enters retroactively through
-`reweight(frame_ids, weights)` over a bounded ring of recent per-frame
-stats, matching `OnlineSilenceWeighting::GetDeltaWeights` semantics without
-unbounded history.
+Everything is channel-batched: UBM log-likes and stats are [B, ...] float32
+matmuls at full precision (`HIGHEST`); the solve is a small batched linear
+system.  Silence weighting (reference recognizer.cc:226-237) enters
+retroactively through `reweight(frame_ids, weights)` over a bounded ring of
+recent per-frame stats, matching `OnlineSilenceWeighting::GetDeltaWeights`
+semantics without unbounded history.
 
 Deviations from Kaldi (documented, small):
   * online CMVN for the posterior stream subtracts the global mean only
@@ -31,6 +31,12 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..io.kaldi_ivector import IvectorDirConfig
+
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HIGHEST)
 
 
 @dataclasses.dataclass
@@ -127,7 +133,7 @@ class OnlineIvectorExtractor:
         T = Tc - l - r
         win = [frames[:, i : i + T] for i in range(l + r + 1)]
         spliced = jnp.concatenate(win, axis=2)
-        return spliced @ self.t.lda.T + self.t.lda_offset
+        return _mm(spliced, self.t.lda.T) + self.t.lda_offset
 
     def _update_impl(self, state, feats, valid, flush=False):
         """Append one chunk and accumulate stats for every center frame that
@@ -178,8 +184,8 @@ class OnlineIvectorExtractor:
         yc = self._splice_lda(window, cmvn=True)   # [B, O, D] posterior stream
 
         ll = (
-            yc @ self.t.miv.T
-            - 0.5 * (yc * yc) @ self.t.ivars.T
+            _mm(yc, self.t.miv.T)
+            - 0.5 * _mm(yc * yc, self.t.ivars.T)
             + self.t.gconsts
         )
         top, idx = jax.lax.top_k(ll, self.Q)       # [B, O, Q]
@@ -192,9 +198,10 @@ class OnlineIvectorExtractor:
         post = post * (emask.astype(jnp.float32) * self.cfg.posterior_scale)[:, :, None]
 
         onehot = jax.nn.one_hot(idx, self.G, dtype=jnp.float32)  # [B,O,Q,G]
-        pg = jnp.einsum("btq,btqg->btg", post, onehot)
+        pg = jnp.einsum("btq,btqg->btg", post, onehot, precision=_HIGHEST)
         gamma = state["gamma"] + jnp.sum(pg, axis=1)
-        xstat = state["xstat"] + jnp.einsum("btg,btd->bgd", pg, y)
+        xstat = state["xstat"] + jnp.einsum("btg,btd->bgd", pg, y,
+                                            precision=_HIGHEST)
 
         # ---- ring of per-center contributions (absolute center index
         # done+j lands in slot (ring_pos+j) % ring)
@@ -257,9 +264,10 @@ class OnlineIvectorExtractor:
         yv = state["ring_y"][bcol, slot]
         dpost = post * (ratio[:, :, None] - 1.0)
         onehot = jax.nn.one_hot(idx, self.G, dtype=jnp.float32)
-        dg = jnp.einsum("bnq,bnqg->bg", dpost, onehot)
+        dg = jnp.einsum("bnq,bnqg->bg", dpost, onehot, precision=_HIGHEST)
         gamma = state["gamma"] + dg
-        xstat = state["xstat"] + jnp.einsum("bnq,bnqg,bnd->bgd", dpost, onehot, yv)
+        xstat = state["xstat"] + jnp.einsum(
+            "bnq,bnqg,bnd->bgd", dpost, onehot, yv, precision=_HIGHEST)
         ring_post = state["ring_post"].at[bcol, slot].set(
             jnp.where(ok[:, :, None], post * ratio[:, :, None], post)
         )
@@ -281,9 +289,10 @@ class OnlineIvectorExtractor:
         )
         gamma = gamma * scale[:, None]
         xstat = xstat * scale[:, None, None]
-        quad = jnp.einsum("bg,gij->bij", gamma, self.t.U)
+        quad = jnp.einsum("bg,gij->bij", gamma, self.t.U, precision=_HIGHEST)
         quad = quad + jnp.eye(self.I, dtype=jnp.float32)
-        lin = jnp.einsum("gid,bgd->bi", self.t.proj, xstat)
+        lin = jnp.einsum("gid,bgd->bi", self.t.proj, xstat,
+                         precision=_HIGHEST)
         lin = lin.at[:, 0].add(self.prior_offset)
         iv = jnp.linalg.solve(quad, lin[:, :, None])[:, :, 0]
         return iv.at[:, 0].add(-self.prior_offset)

@@ -14,8 +14,8 @@ implemented in Kaldi feat/pitch-functions.cc:
 
 This module is the utterance-level (offline) extractor, written as jnp so
 the NCCF (a batch of sliding dot products) and the Viterbi recursion
-(lax.scan over frames) run on TPU; streaming integration into the feature
-pipeline is tracked in COVERAGE.md.  Differences from Kaldi kept simple
+(lax.scan over frames) run on the accelerator; streaming integration into
+the feature pipeline is tracked in COVERAGE.md.  Differences from Kaldi kept simple
 deliberately: integer lag grid (Kaldi interpolates onto a log-spaced grid)
 and a fixed POV mapping from the paper's NCCF statistic.
 """
@@ -168,7 +168,7 @@ class StreamingPitch:
     """Chunk-invariant streaming pitch (jnp; runs inside the jitted feature
     pipeline).  The reference wires Kaldi's online pitch into the feature
     pipeline when conf/pitch.conf exists (src/model.cc:265-276); this is
-    the TPU-native equivalent with sequential (carried-state) recursions so
+    the JAX equivalent with sequential (carried-state) recursions so
     any chunking of the input produces identical features:
 
       * FIR-decimation of the input to `resample_rate` (integer factor)
@@ -274,7 +274,8 @@ class StreamingPitch:
         idx = start0[:, None, None] + qi[None, :, None] + ti[None, None, :]
         idx = jnp.clip(idx, 0, Wb - 1)
         x16 = jnp.take_along_axis(buf, idx.reshape(B, -1), axis=1)
-        sig4 = x16.reshape(B, Lr, taps) @ jnp.asarray(self.fir)  # [B, Lr]
+        sig4 = jnp.matmul(x16.reshape(B, Lr, taps), jnp.asarray(self.fir),
+                          precision=jax.lax.Precision.HIGHEST)  # [B, Lr]
 
         # frames [B, F, ws4 + max_lag]
         fi = jnp.arange(F, dtype=jnp.int32) * sh4

@@ -1,9 +1,9 @@
-"""Batched WFST token-passing beam search on TPU.
+"""Batched WFST token-passing beam search on the accelerator.
 
 Replaces Kaldi's `SingleUtteranceNnet3IncrementalDecoder` /
 `BatchedThreadedNnet3CudaOnlinePipeline` beam search (reference
 src/recognizer.cc:310, src/batch_model.cc:90-92).  The CPU reference walks
-linked-list tokens; this kernel is the TPU-shaped equivalent of the CUDA
+linked-list tokens; this is a fixed-shape JAX program after the CUDA
 decoder's design (papers 1804.03243 / 1910.10032): fixed-size frontier,
 arc expansion over a flattened CSR table, dedup by next-state via
 scatter-min, beam + max-active pruning via top-k, backpointer records
@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..graph.fst import EPSILON, DecodingGraph
+from .gather import gather_rows
 
 INF = jnp.float32(jnp.inf)
 BIG_I32 = jnp.int32(2**31 - 1)
@@ -39,9 +40,7 @@ BIG_I32 = jnp.int32(2**31 - 1)
 # silence-pdf flag in bit 30; per-token state "tsil" packs the trailing
 # silence frame count (low bits) with a has-speech flag (bit 21).  This is
 # what makes endpoint checks O(1): no host traceback needed (the reference
-# reads equivalent decoder state at recognizer.cc:318).  The speech bit
-# sits low enough (tsil < 2^22 < 2^24) that tsil values stay exact through
-# the f32 one-hot matmul gathers of ops/gather.py.
+# reads equivalent decoder state at recognizer.cc:318).
 SIL_FLAG = jnp.int32(1 << 30)
 PDF_MASK = jnp.int32((1 << 30) - 1)
 SPEECH_BIT = jnp.int32(1 << 21)
@@ -95,12 +94,10 @@ class BatchViterbi:
             # capping (graph/arrayopt.py).  Min-plus exact; typically leaves
             # the graph eps-free, enabling the v4 single-phase frame step.
             # cap_m tunes the dense-row width M: smaller rows shrink the
-            # per-frame arc-row gather and the candidate pool E=K*M
-            # (r5 profile: the gather is the dominant frame cost) at the
-            # price of more part-duplicated hub tokens.  Default M=4:
-            # measured +52% decode throughput at the honest bench point
-            # (101.8 -> 155 audio-s/s/chip) and exact (min-plus preserving;
-            # word parity vs the v3 oracle in tests/test_wer_parity.py).
+            # per-frame arc-row gather and the candidate pool E=K*M at the
+            # price of more part-duplicated hub tokens.  Default M=4, exact
+            # (min-plus preserving; word parity vs the v3 oracle in
+            # tests/test_wer_parity.py).
             from ..graph.arrayopt import prepare_graph_v4
 
             graph = prepare_graph_v4(
@@ -143,8 +140,6 @@ class BatchViterbi:
         self.K2 = max(self.K, int(np.ceil(dedup_slack * K)))
         # v3 eps rounds expand only the best Eb eps-flagged tokens
         self.Eb = max(1, min(K, eps_budget))
-        # one-hot gathers of state ids are f32-exact below 2^24
-        self._gather_exact_f32 = (S + 1) < (1 << 24)
 
         # ---- v4 single-phase frame step (requires padded layout, no eps
         # rounds); "auto" picks v4 whenever eligible
@@ -334,9 +329,8 @@ class BatchViterbi:
         ol_bits = 32 - (self.pdf_bits + 1)
         self.ol_in_meta = int(ola.max()) < (1 << ol_bits)
         if self.pack == "packed16":
-            # two planes per arc instead of 3-4: the arc-row gather is
-            # byte-bound (measured 12.7 -> 8.9 ms/frame for 3 -> 2 planes
-            # at the honest operating point, tools/mb_select3.py).
+            # two planes per arc instead of 3-4: fewer bytes per arc-row
+            # gather.
             #   plane1 = f16(w) << 16 | sil << 14 | pdf   (pdf_bits <= 14)
             #   plane2 = nsf (next state | EPS_NS_FLAG)
             # olabels are NOT on device: v4 records carry (prev, m) and the
@@ -474,8 +468,7 @@ class BatchViterbi:
 
         Two strategies:
           - "sort": one lexicographic sort by (state, cost); the first entry
-            of each state run is its min — no scatters.  TPU-friendly (XLA
-            scatter serializes; sort is a fast bitonic network).
+            of each state run is its min — no scatters.
           - "scatter": dense table scatter-min + winner compare (good on CPU
             and for very large N where sort costs more).
         """
@@ -526,13 +519,10 @@ class BatchViterbi:
 
     # ---------------------------------------------------- packed sort helpers
     #
-    # The frame step's irregular work runs through sorts and one-hot matmul
-    # gathers — never `take_along_axis`/scatters, which XLA lowers on TPU
-    # element-at-a-time (~10 ns/element, tools/mb_parts.py).  v3 structure
-    # (one cost-ordered sort of the full candidate pool carrying packed
-    # payloads, then dedup/top-K sorts on a short prefix, then small one-hot
-    # gathers to reconstruct per-token state) measured ~3x faster than the
-    # v2 three-full-sort structure at the honest operating point.
+    # The frame step's irregular work runs through sorts and gathers, never
+    # scatters: one cost-ordered sort of the full candidate pool carrying
+    # packed payloads, then dedup/top-K sorts on a short prefix, then small
+    # gathers to reconstruct per-token state.
 
     @staticmethod
     def _cost_bits(cost):
@@ -605,31 +595,20 @@ class BatchViterbi:
         pays_k = tuple(x[:, :K] for x in sC[2:])
         return kbits, nsf_k, pays_k, lat_prefix
 
-    def _small_gather(self, table, idx):
-        """Per-channel gather from a [B, K]-sized int32 table via one-hot
-        matmuls; exact for any int32 (16-bit split when values may exceed
-        the f32-exact range)."""
-        from .gather import onehot_gather, onehot_gather_i32
-
-        if self._gather_exact_f32:
-            return onehot_gather(table, idx)
-        return onehot_gather_i32(table, idx)
-
     # ------------------------------------------------------------- one frame
 
     def _frame_step_batched(self, frontier, ll, valid):
         """Whole-batch frame step for the padded layout (v3).
 
-        Structure (see tools/mb_parts.py for the per-primitive costs that
-        drove it):
+        Structure:
           1. one row gather em_pack[tok_state] -> [B, K, 3M]
-          2. candidate costs with the acoustic term via an exact one-hot
-             matmul gather (ops/gather.py) — never take_along_axis
+          2. candidate costs with the acoustic term gathered from ll
+             (ops/gather.py)
           3. one cost-ordered sort of all E=K*M candidates carrying packed
              payloads (nsf, prev|m, meta); its prefix feeds both the lattice
              rows and a short dedup/top-K sort pair
           4. survivors' per-token extras (trailing silence) reconstructed by
-             small one-hot gathers from the [B, K] frontier tables
+             small gathers from the [B, K] frontier tables
 
         ll: [B, P] acoustic rows; valid: [B] bool.
         """
@@ -647,8 +626,6 @@ class BatchViterbi:
         slot_base + j*slot_stride, recorded in prevm so tracebacks always
         carry global slot ids).  Returns (cbits, nsm, prevm, metam, olab).
         """
-        from .gather import onehot_gather
-
         M, S = self.M, self.S
         scale = self.params.acoustic_scale
         pb, mbits = self.pdf_bits, self.mbits
@@ -666,7 +643,7 @@ class BatchViterbi:
                 rows[:, :, 3 * M : 4 * M], jnp.int32
             ).reshape(B, En)
         pdf = meta & pdf_mask
-        ac = onehot_gather(ll, pdf)
+        ac = gather_rows(ll, pdf)
         cost = jnp.repeat(tok_cost, M, axis=1) + w - scale * ac
         mask = jnp.isfinite(w)
 
@@ -683,8 +660,6 @@ class BatchViterbi:
 
     def _finish_from_candidates(self, frontier, cands, valid):
         """Selection + records + eps rounds from a scored candidate pool."""
-        from .gather import onehot_gather
-
         K, S = self.K, self.S
         pb, mbits = self.pdf_bits, self.mbits
         pdf_mask = jnp.int32((1 << pb) - 1)
@@ -713,7 +688,7 @@ class BatchViterbi:
 
         # trailing-silence update: gather the source token's tsil, then
         # silence arcs extend the run, speech arcs reset it + latch speech
-        prev_ts = onehot_gather(frontier["tsil"], prev)  # tsil < 2^22: exact
+        prev_ts = gather_rows(frontier["tsil"], prev)
         cand_ts = jnp.where(
             sil,
             ((prev_ts & TSIL_MASK) + 1) | (prev_ts & SPEECH_BIT),
@@ -868,15 +843,13 @@ class BatchViterbi:
         frontier (sharded mode): local slot j is global slot
         slot_base + j*slot_stride, and pm always carries GLOBAL slot ids so
         tracebacks work unchanged."""
-        from .gather import onehot_gather
-
         M, S = self.M, self.S
         scale = self.params.acoustic_scale
         B, Kn = tok_state.shape
         En = Kn * M
 
         w, nsf, sil, pdf = self._unpack_rows_v4(tok_state)
-        ac = onehot_gather(ll, pdf)
+        ac = gather_rows(ll, pdf)
         cost = jnp.repeat(tok_cost, M, axis=1) + w - scale * ac
         finite = jnp.isfinite(w)
         cbits = jnp.where(finite, self._cost_bits(cost), BIG_I32)
@@ -900,8 +873,7 @@ class BatchViterbi:
         cbits, nsm, pm = self._expand_v4(
             frontier["state"], frontier["cost"], ll
         )
-        # one cost-ordered sort; payload planes ride free (measured:
-        # sortA 5-plane == 2-plane, tools/mb_select3.py)
+        # one cost-ordered sort carrying the payload planes
         sA = jax.lax.sort((cbits, nsm, pm), num_keys=1, dimension=1)
         return self._select_v4(frontier, sA, valid)
 
@@ -972,8 +944,8 @@ class BatchViterbi:
 
     def _frame_step_v4_ragged(self, frontier, ll, valid):
         """v4 frame step with live-prefix bucketed expansion over channel
-        groups — the TPU answer to data-dependent beam-search work (the
-        CUDA decoder's analogue is its per-channel token queues,
+        groups — a fixed-shape answer to data-dependent beam-search work
+        (the CUDA decoder's analogue is its per-channel token queues,
         ref. batched online decoding, PAPERS.md 1910.10032):
 
           * per channel, only the live slot prefix is expanded, rounded up
@@ -983,10 +955,7 @@ class BatchViterbi:
             over G groups picks each group's bucket with lax.switch at
             runtime (one trace, data-dependent work inside jit)
 
-        At the honest operating point (B=96, K=7000, live p50=91 p95=cap)
-        measured expansion work drops to ~0.28x of full-K with G=4
-        (tools/profile_live.py); results are bit-exact vs _frame_step_v4
-        (tests/test_viterbi_v4.py)."""
+        Results are bit-exact vs _frame_step_v4 (tests/test_viterbi_v4.py)."""
         B, K = frontier["state"].shape
         G = self._ragged_G(B)
         if G <= 1:
@@ -1057,8 +1026,6 @@ class BatchViterbi:
     def _select_v4(self, frontier, sA, valid):
         """v4 selection from a cost-ordered candidate pool sA = (cbits, nsm,
         pm), each [B, P_pool] (P_pool = E whole-batch, n*C sharded)."""
-        from .gather import onehot_gather
-
         K, S, R = self.K, self.S, self.R
         mbits = self.mbits
         tok_state, tok_cost = frontier["state"], frontier["cost"]
@@ -1102,7 +1069,7 @@ class BatchViterbi:
         prev = jax.lax.shift_right_logical(pm_k & PM_MASK, mbits)
         silk = (pm_k & PM_SIL_FLAG) != 0
 
-        prev_ts = onehot_gather(frontier["tsil"], jnp.where(keep, prev, 0))
+        prev_ts = gather_rows(frontier["tsil"], jnp.where(keep, prev, 0))
         cand_ts = jnp.where(
             silk,
             ((prev_ts & TSIL_MASK) + 1) | (prev_ts & SPEECH_BIT),
@@ -1178,7 +1145,7 @@ class BatchViterbi:
         src_cb = -neg
         src_alive = src_cb < BIG_I32
         src_cost = self._bits_cost(src_cb)
-        src_state = self._small_gather(cur_state, src)
+        src_state = gather_rows(cur_state, src)
         rows = self.eps_pack[jnp.where(src_alive, src_state, S)]  # [B, Eb, 4Me]
         w = rows[:, :, :Me].reshape(B, Ke)
         ensf = jax.lax.bitcast_convert_type(rows[:, :, Me : 2 * Me], jnp.int32).reshape(B, Ke)
@@ -1217,9 +1184,7 @@ class BatchViterbi:
         eflag2 = keep2 & ((nsf_k & EPS_NS_FLAG) != 0)
         prev_k = jnp.where(keep2, pays_k[0], 0)
         # eps moves consume no frame: tsil carries over from the source slot
-        from .gather import onehot_gather
-
-        ts2 = jnp.where(keep2, onehot_gather(cur_tsil, prev_k), 0)
+        ts2 = jnp.where(keep2, gather_rows(cur_tsil, prev_k), 0)
         lvl_rec = {
             "prev": jnp.where(keep2, prev_k, -1),
             "olabel": jnp.where(keep2, pays_k[1], 0),
@@ -1440,8 +1405,8 @@ class BatchViterbi:
 
     def _frame_step_sharded(self, frontier, ll, valid, axis: str, shard_slack: int):
         """One frame with the expansion phase sharded over mesh axis `axis`
-        (utterance/search sharding — BASELINE.md north star; the reference
-        has no equivalent, its scale-out is process-level).
+        (utterance/search sharding; the reference has no equivalent, its
+        scale-out is process-level).
 
         Each shard expands a round-robin stripe of the cost-sorted frontier
         (stripe i holds every n-th token by cost rank, so shards stay

@@ -1,7 +1,7 @@
 """Device mesh + sharding layout for the batch pipeline.
 
 The reference scales by thread-level stream parallelism on CPU and a CUDA
-dynamic batcher on GPU (SURVEY §2c); the TPU-native layout is:
+dynamic batcher on GPU (SURVEY §2c); the layout here is:
 
   mesh = (data, model)
   - `data`:  channels (concurrent streams) — the throughput axis; per-channel
@@ -14,8 +14,11 @@ Beam-search state stays channel-local, so token passing needs no cross-chip
 collectives in the data-parallel regime.  The utterance-sharded search mode
 (BatchViterbi.decode_chunk_sharded) splits each frame's expansion over the
 `model` axis with a pmin-synced global beam threshold and an all_gather
-candidate merge — the synchronized-pruning collectives of the BASELINE.md
-north star; parity vs single-device is tested in tests/test_multichip.py.
+candidate merge; parity vs single-device is tested in
+tests/test_multichip.py.
+
+The mesh shape follows the algorithm alone: the cards of one host are
+joined all to all, so no axis order is tied to a physical topology.
 """
 from __future__ import annotations
 

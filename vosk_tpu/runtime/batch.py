@@ -1,4 +1,4 @@
-"""High-throughput batch transcription — the TPU equivalent of the
+"""High-throughput batch transcription — the JAX equivalent of the
 reference's CUDA batch pipeline (`BatchedThreadedNnet3CudaOnlinePipeline` +
 `CudaOnlinePipelineDynamicBatcher`, src/batch_model.cc:69-96,
 src/batch_recognizer.cc).

@@ -1,7 +1,7 @@
 """Fused streaming pipeline: features -> TDNN-F -> token passing in ONE
 jitted step over the channel batch.
 
-This is the TPU analogue of the reference's single CUDA pipeline launch per
+This is the analogue of the reference's single CUDA pipeline launch per
 dynamic batch (`BatchedThreadedNnet3CudaOnlinePipeline::DecodeBatch`): one
 compiled program advances all channels by one 0.2 s chunk, keeping all
 streaming state on device.  Used by bench and the scale paths; the
@@ -187,9 +187,8 @@ class FusedPipeline:
 
         max_active is an UPPER BOUND on live tokens (Kaldi semantics): when
         beam pruning keeps fewer tokens live, decoding at a smaller
-        max_active variant is identical and several times cheaper at the
-        honest operating point (the frame step scales ~linearly in K; see
-        tools/profile_r4stage.py).  Between segments the host reads the live
+        max_active variant is identical and cheaper (the frame step's work
+        scales ~linearly in K).  Between segments the host reads the live
         token count and picks the smallest variant k with live <= headroom*k
         for the next segment; a segment that fills a small variant steps up
         on the next boundary (transiently equivalent to a tighter

@@ -1,5 +1,5 @@
 """Streaming Recognizer — API/behavior parity with the reference Recognizer
-(src/recognizer.h:43, src/recognizer.cc) on a TPU-shaped pipeline:
+(src/recognizer.h:43, src/recognizer.cc) on a fixed-shape device pipeline:
 
   PCM chunks -> streaming feature kernel -> streaming TDNN-F -> batched
   token-passing decode, with the state machine INITIALIZED/RUNNING/ENDPOINT/
@@ -295,7 +295,7 @@ class Recognizer:
         frozen best-path prefix so retained device records stay within
         keep_window_frames (the reference bounds lattice memory with
         incremental determinization, model.h:24; freezing the >6 s-old
-        prefix to the converged best path is the TPU-shaped equivalent —
+        prefix to the converged best path is the fixed-shape equivalent —
         alternatives that old have virtually always collapsed under beam
         pruning)."""
         retained = self._utt_frames - self._folded_frames

@@ -105,6 +105,9 @@ def main() -> None:
     p.add_argument("--log-level", default="INFO")
     args = p.parse_args()
     logging.getLogger().setLevel(args.log_level.upper())
+    from ..utils import compile_cache
+
+    compile_cache.enable()
     asyncio.run(amain(args))
 
 

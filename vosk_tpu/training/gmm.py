@@ -1,6 +1,6 @@
 """Flat-start monophone GMM-HMM bootstrap alignment.
 
-The TPU-framework equivalent of the reference recipe's GMM stages
+The in-framework equivalent of the reference recipe's GMM stages
 (`/root/reference/training/run.sh:31-60`: train_mono -> align -> tri ->
 align ...): starting from transcripts only, train a diagonal-covariance
 GMM per phone with Viterbi-EM and emit per-frame phone alignments, so the
@@ -16,7 +16,7 @@ Scope notes vs Kaldi gmm-align:
     acoustic modeling lives in the TDNN-F stage that follows.
   * alignment DP is plain vectorized numpy: utterances are seconds long
     and this runs once at the head of training; the jit-compiled pipeline
-    (features/AM/chain) stays the TPU path.
+    (features/AM/chain) stays the device path.
 """
 from __future__ import annotations
 

@@ -34,8 +34,11 @@ parser.add_argument("--log-level", default="INFO", help="logging level")
 
 
 def main() -> None:
+    from ..utils import compile_cache
+
     args = parser.parse_args()
     logging.getLogger().setLevel(args.log_level.upper())
+    compile_cache.enable()
 
     if args.list_models:
         import vosk_tpu

@@ -135,6 +135,31 @@ def make_plausible_loglikes(
     return ll
 
 
+def structured_ll_bias(pipe, n_chunks: int, snr: float = 2.0, seed: int = 0):
+    """Acoustic bias [n_chunks, B, frames_per_chunk, P] on the device for
+    `FusedPipeline.run_scan(..., ll_bias=)`: `make_plausible_loglikes` over
+    the pipeline's graph, laid out per device chunk.  The AM's output frames
+    per chunk come from the traced shapes; nothing runs."""
+    import jax
+    import jax.numpy as jnp
+
+    B, S = pipe.B, pipe.chunk_samples
+
+    def am_out(params, st, audio, n):
+        _, feats, fvalid = pipe.ex._extract_chunk_impl(st["feat"], audio,
+                                                       None, n)
+        return pipe.am._process_chunk_impl(params, st["am"], feats, fvalid,
+                                           None)[1]
+
+    fd = jax.eval_shape(am_out, pipe.params, pipe.init_state(),
+                        jax.ShapeDtypeStruct((B, S), jnp.float32),
+                        jax.ShapeDtypeStruct((B,), jnp.int32)).shape[1]
+    P = pipe.model.config.am["num_pdfs"]
+    lb = make_plausible_loglikes(pipe.model.graph, P, B, n_chunks * fd,
+                                 snr=snr, seed=seed)
+    return jax.device_put(lb.reshape(n_chunks, fd, B, P).swapaxes(1, 2))
+
+
 def make_bench_graph(
     num_states: int = 50_000,
     avg_em_arcs: int = 6,
